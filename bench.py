@@ -28,8 +28,8 @@ import numpy as np
 
 
 def _load_scene():
-    from nart_tpu.scene import load_scene
-    from nart_tpu.testing import simple_scene
+    from nart_jax.scene import load_scene
+    from nart_jax.testing import simple_scene
 
     ref = "/root/reference/input/scenes/glassSphere.json"
     if os.path.exists(ref):
@@ -49,8 +49,8 @@ def fwdbwd_run(sess, spp=None, chunk=16, rounds_cache=None):
     import jax
     import jax.numpy as jnp
 
-    from nart_tpu import grad as grad_mod
-    from nart_tpu import rng, sampling
+    from nart_jax import grad as grad_mod
+    from nart_jax import rng, sampling
 
     params = sess.params
     size_w, size_h = params.image_width, params.image_height
@@ -93,10 +93,10 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from nart_tpu import grad as grad_mod
-    from nart_tpu import render as render_mod
-    from nart_tpu.integrators import path as path_integrator
-    from nart_tpu import camera, rng, sampling
+    from nart_jax import grad as grad_mod
+    from nart_jax import render as render_mod
+    from nart_jax.integrators import path as path_integrator
+    from nart_jax import camera, rng, sampling
 
     size = int(os.environ.get("NART_BENCH_SIZE", "512"))
     spp = int(os.environ.get("NART_BENCH_SPP", "16"))

@@ -40,9 +40,9 @@ def main():
     import numpy as np
     from jax.sharding import PartitionSpec as P
 
-    from nart_tpu import accel, grad as grad_mod
-    from nart_tpu import render as render_mod, sharding
-    from nart_tpu.testing import simple_scene
+    from nart_jax import accel, grad as grad_mod
+    from nart_jax import render as render_mod, sharding
+    from nart_jax.testing import simple_scene
 
     scene = simple_scene(("lambert",))
     params = render_mod.RenderParams(
@@ -69,8 +69,8 @@ def main():
     )
 
     def lanes_loss(theta, px, py):
-        from nart_tpu import camera, rng, sampling
-        from nart_tpu.integrators import path as pi
+        from nart_jax import camera, rng, sampling
+        from nart_jax.integrators import path as pi
 
         scn = grad_mod.put_params(scene_j, theta)
         state = rng.seed(py * 8 + px)

@@ -17,9 +17,9 @@ from __future__ import annotations
 import jax.numpy as jnp
 import numpy as np
 
-from nart_tpu import bxdf, camera, film, geometry, rng
-from nart_tpu.lights import light_eval, light_sample
-from nart_tpu.materials import make_bsdf
+from nart_jax import bxdf, camera, film, geometry, rng
+from nart_jax.lights import light_eval, light_sample
+from nart_jax.materials import make_bsdf
 
 SHADOW_BIAS = np.float32(0.001)
 FLT_BEFORE_ONE = np.float32(1.0) - np.float32(1.1920928955078125e-07)

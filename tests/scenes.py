@@ -1,3 +1,3 @@
-"""Re-export of the programmatic test scenes (see nart_tpu.testing)."""
+"""Re-export of the programmatic test scenes (see nart_jax.testing)."""
 
-from nart_tpu.testing import quad, simple_scene  # noqa: F401
+from nart_jax.testing import quad, simple_scene  # noqa: F401

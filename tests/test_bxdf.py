@@ -3,7 +3,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from nart_tpu import bxdf
+from nart_jax import bxdf
 
 
 def _desc(n, rho_d=(1, 1, 1), rho_s=(1, 1, 1), tau=(1, 1, 1), eta=1.5,

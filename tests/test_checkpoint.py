@@ -4,7 +4,7 @@ import os
 
 import numpy as np
 
-from nart_tpu import render as render_mod
+from nart_jax import render as render_mod
 from tests import scenes
 
 
@@ -38,7 +38,7 @@ def test_checkpoint_param_mismatch(tmp_path):
     ck = str(tmp_path / "ck.npz")
     sess = render_mod.RenderSession(scene, params)
     sess.render(checkpoint_path=ck, checkpoint_every=2)
-    from nart_tpu import checkpoint as ckpt
+    from nart_jax import checkpoint as ckpt
 
     with pytest.raises(ValueError):
         ckpt.load(ck, dataclasses.replace(params, bounces=5))

@@ -14,7 +14,7 @@ REF_SCENES = "/root/reference/input/scenes"
 
 
 def _run(argv):
-    from nart_tpu.cli import main
+    from nart_jax.cli import main
 
     return main(argv)
 
@@ -26,7 +26,7 @@ def test_render_writes_exr(tmp_path):
          "16", "-s", "1"]
     )
     assert rc == 0
-    from nart_tpu import exr
+    from nart_jax import exr
 
     img = exr.read(out + ".exr")
     assert img.shape == (16, 16, 4)
@@ -46,7 +46,7 @@ def test_multi_session_naming(tmp_path):
 
 
 def test_flag_precedence_cli_over_json():
-    from nart_tpu.render import resolve_params
+    from nart_jax.render import resolve_params
 
     # JSON says 64 spp; CLI override wins (render.cpp:327-414 precedence)
     p = resolve_params({"spp": 64, "imageWidth": 32}, {"spp": 4})

@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from nart_tpu import film
+from nart_jax import film
 
 
 def test_splat_grid_matches_scatter():

@@ -3,7 +3,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from nart_tpu import accel, geometry
+from nart_jax import accel, geometry
 
 
 def _random_tris(n, seed=0, scale=1.0):
@@ -112,3 +112,34 @@ def test_surface_attributes():
     assert int(surf.mesh[0]) == 7
     # uv at p: v1 weight = v (x/2), v2 weight = 1-u-v (y/2)
     np.testing.assert_allclose(np.asarray(surf.st[0]), [0.25, 0.25], atol=1e-5)
+
+
+def test_slab_test_rejects_empty_padding_boxes():
+    """The complete tree pads its leaves to a power of two with empty boxes
+    (lo = +inf, hi = -inf), and so are their ancestors.  Their slabs give
+    near = -inf and far = +inf on every axis: the slab test must still
+    call them a miss, or every ray walks the whole padding subtree."""
+    g = np.random.default_rng(4)
+    n = 256
+    o = jnp.asarray(g.normal(size=(n, 3)), jnp.float32)
+    d = jnp.asarray(g.normal(size=(n, 3)), jnp.float32)
+    inv_d = 1.0 / d
+    lo = jnp.full((n, 3), np.inf, jnp.float32)
+    hi = jnp.full((n, 3), -np.inf, jnp.float32)
+    for t_max in (np.inf, 10.0):
+        hit, _ = accel._slab_test(o, inv_d, jnp.zeros(n),
+                                  jnp.full(n, t_max), lo, hi)
+        assert not np.asarray(hit).any()
+    # 9 leaves of 8 triangles pad to 16: the 7 padding leaves, and the
+    # inner nodes over padding only, are the empty boxes
+    tri = np.asarray(g.normal(size=(70, 3, 3)), np.float32)
+    bvh = accel.build_bvh(tri)
+    lo, hi = np.asarray(bvh.node_lo), np.asarray(bvh.node_hi)
+    empty = (lo > hi).any(-1)
+    leaf0 = bvh.n_leaves - 1
+    assert bvh.n_leaves == 16
+    np.testing.assert_array_equal(empty[leaf0:], np.arange(16) >= 9)
+    inner = np.arange(leaf0)
+    np.testing.assert_array_equal(
+        empty[inner], empty[2 * inner + 1] & empty[2 * inner + 2]
+    )

@@ -1,39 +1,72 @@
 """Golden-image tests against the actual reference renderer's output.
 
-The fixtures in tests/golden/ were rendered by the reference binary
-(built via tools/refbuild) at the given size/spp.  Per-pixel equality
-cannot hold — fp ordering differences send chaotic (glass/caustic) paths
-to different outcomes — so the comparison is statistical:
+The fixtures in tests/golden/ were rendered by the reference binary at the
+given size/spp.  Per-pixel equality cannot hold — fp ordering differences
+send chaotic (glass/caustic) paths to different outcomes — so the
+comparison is statistical:
 
   * global image mean within a few percent (the Monte Carlo estimate of
     total flux agrees),
   * block means (16x16) mostly within a noise-scaled tolerance
     (structure agrees, not just the total).
 
-veach.json (MIS, diffuse+glossy, fast) runs in the default suite;
-glassSphere.json (nested dielectrics + caustics, slow) is opt-in via
-NART_SLOW_TESTS=1.
+Scenes whose meshes or textures are in the repository (volume blob,
+macbeth, Cornell on the macbeth fixture's meshes) run here on the CPU.
+The others need assets of the reference checkout, which the repository
+does not hold; they skip, naming the first missing asset.  chip_smoke.py
+runs the in-repo goldens on the card with the same tolerances.
 """
 
+import json
 import os
 
 import numpy as np
 import pytest
 
-GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
-REF_SCENES = "/root/reference/input/scenes"
+HERE = os.path.dirname(__file__)
+GOLDEN = os.path.join(HERE, "golden")
+MACBETH = os.path.join(HERE, "fixtures", "macbeth")
+# the reference checkout's scenes and assets (not in the repository)
+REF_ROOT = os.path.join(os.path.dirname(HERE), "reference")
+REF_SCENES = os.path.join(REF_ROOT, "input", "scenes")
+
+
+def _file_paths(node):
+    if isinstance(node, dict):
+        for k, v in node.items():
+            if k == "filePath":
+                yield v
+            else:
+                yield from _file_paths(v)
+    elif isinstance(node, list):
+        for v in node:
+            yield from _file_paths(v)
+
+
+def _require_assets(scene_path, asset_root):
+    """Skip unless the scene file and every asset it names are present."""
+    from nart_jax.scene import resolve_asset
+
+    if not os.path.exists(scene_path):
+        pytest.skip(f"needs {os.path.basename(scene_path)}, a reference "
+                    "scene that is not in the repository")
+    with open(scene_path) as f:
+        doc = json.load(f)
+    for path in _file_paths(doc):
+        try:
+            resolve_asset(path, asset_root)
+        except FileNotFoundError:
+            pytest.skip(f"needs the reference asset {path.replace('//', '/')}"
+                        ", which is not in the repository")
 
 
 def _render(scene_name, w, h, spp):
-    from nart_tpu import film as film_mod
-    from nart_tpu import render as render_mod
-    from nart_tpu.scene import load_scene
+    from nart_jax import render as render_mod
+    from nart_jax.scene import load_scene
 
-    import jax.numpy as jnp
-
-    scene = load_scene(
-        os.path.join(REF_SCENES, scene_name), asset_root="/root/reference"
-    )
+    scene_path = os.path.join(REF_SCENES, scene_name)
+    _require_assets(scene_path, REF_ROOT)
+    scene = load_scene(scene_path, asset_root=REF_ROOT)
     params = render_mod.resolve_params(
         {}, dict(image_width=w, image_height=h, spp=spp)
     )
@@ -41,8 +74,19 @@ def _render(scene_name, w, h, spp):
     return sess.image()
 
 
+def _render_session(scene_path, asset_root, overrides, session_index=0):
+    """Render one renderSession of a scene file in this process."""
+    from nart_jax import render as render_mod
+    from nart_jax.scene import load_scene
+
+    _require_assets(scene_path, asset_root)
+    scene = load_scene(scene_path, asset_root=asset_root)
+    params = render_mod.load_sessions(scene_path, overrides)[session_index]
+    return render_mod.RenderSession(scene, params).image()
+
+
 def _compare(ours, golden_path, mean_tol, block_tol, block_frac):
-    from nart_tpu import exr
+    from nart_jax import exr
 
     ref = exr.read(golden_path)
     assert ref.shape == ours.shape
@@ -68,8 +112,8 @@ def test_volume_golden():
     """Volume integrator vs the reference on the generated blob volume
     (tools/gen_volume_golden.py; the reference's own hand.vol is a stripped
     large blob)."""
-    from nart_tpu import render as render_mod
-    from nart_tpu.scene import load_scene
+    from nart_jax import render as render_mod
+    from nart_jax.scene import load_scene
 
     scene_path = os.path.join(GOLDEN, "volume_blob.json")
     scene = load_scene(scene_path)
@@ -91,14 +135,9 @@ def test_texture_env_golden():
     normal map (generated waves_normal.exr — reference decode n=2v-1,
     plasticmaterial.cpp:16-21), environment light with 2D-CDF importance
     sampling on uv.exr, plus a disk light for MIS, rougheningFactor 0.25."""
-    from nart_tpu import render as render_mod
-    from nart_tpu.scene import load_scene
-
-    scene_path = os.path.join(GOLDEN, "texture_env.json")
-    scene = load_scene(scene_path, asset_root="/root/reference")
-    params = next(iter(render_mod.load_sessions(scene_path)))
-    sess = render_mod.RenderSession(scene, params)
-    ours = sess.image()
+    ours = _render_session(
+        os.path.join(GOLDEN, "texture_env.json"), REF_ROOT, None
+    )
     _compare(
         ours,
         os.path.join(GOLDEN, "texture_env_128x128_16spp.exr"),
@@ -114,22 +153,15 @@ def test_ring_golden():
     Default-suite check is the TIGHT one: the two ROUGHENED renderSessions
     (rougheningFactor 0.2 / 0.3) at 64x64 @64spp vs the 512-spp reference
     goldens — roughening tames the caustic tail enough for a 5% mean bound
-    (both sessions measured ~1.9% at this config).  The render runs on the
-    environment's accelerator via backend_render (subprocess; in-process
-    CPU fallback), replacing the old default that spent ~22 min of CPU on
-    a near-vacuous mean_tol 0.25 check (now test_ring_golden_loose,
-    slow-gated).  The unroughened session 0's estimator is too heavy-
+    (both sessions measured ~1.9% at this config).  The unroughened session 0's estimator is too heavy-
     tailed for tight bounds below 256 spp (the reference's OWN 16-spp mean
     deviates ~10% from its 512-spp mean at 64x64); it is covered at 256
     spp by test_ring_golden_tight."""
-    from tests.backend_render import render_image
-
     scene_path = os.path.join(REF_SCENES, "ring.json")
     for si in (1, 2):
-        ours = render_image(
-            scene_path,
-            dict(image_width=64, image_height=64, spp=64),
-            session_index=si,
+        ours = _render_session(
+            scene_path, REF_ROOT,
+            dict(image_width=64, image_height=64, spp=64), session_index=si,
         )
         _compare(
             ours,
@@ -146,13 +178,9 @@ def test_ring_golden():
 def test_ring_golden_loose():
     """Unroughened ring session 0 at 32 spp: noise-scaled (loose) bounds
     (~2.5x the reference's own measured 16-spp noise at this config)."""
-    from tests.backend_render import render_image
-
-    scene_path = os.path.join(REF_SCENES, "ring.json")
-    ours = render_image(
-        scene_path,
+    ours = _render_session(
+        os.path.join(REF_SCENES, "ring.json"), REF_ROOT,
         dict(image_width=64, image_height=64, spp=32),
-        session_index=0,
     )
     _compare(
         ours,
@@ -170,11 +198,12 @@ def test_ring_golden_tight():
     """All three ring renderSessions (rougheningFactor 0/0.2/0.3) at 256 spp
     vs 256-spp reference goldens — converged enough for tight bounds
     (measured: ours-vs-ref mean delta 1.5%, 98% of blocks within 15%)."""
-    from nart_tpu import render as render_mod
-    from nart_tpu.scene import load_scene
+    from nart_jax import render as render_mod
+    from nart_jax.scene import load_scene
 
     scene_path = os.path.join(REF_SCENES, "ring.json")
-    scene = load_scene(scene_path, asset_root="/root/reference")
+    _require_assets(scene_path, REF_ROOT)
+    scene = load_scene(scene_path, asset_root=REF_ROOT)
     sessions = render_mod.load_sessions(
         scene_path, dict(image_width=128, image_height=128, spp=256)
     )
@@ -191,19 +220,17 @@ def test_ring_golden_tight():
 
 def _render_macbeth(w, h, spp):
     """The reference's radiometric color-chart scene, staged in
-    tests/fixtures/macbeth: real sRGB_ColorChecker2005.exr + sphere/plane
-    meshes from /root/reference, with the two stripped large blobs
-    (parking_garage_4k.exr, hand.vol — see /root/reference/.MISSING_LARGE_BLOBS)
-    replaced by generated substitutes (tools/gen_macbeth_fixture.py); the
-    golden EXRs were rendered by the reference binary (tools/refbuild)
-    from the same fixture dir, so the comparison is exact-config."""
-    import os as _os
+    tests/fixtures/macbeth: real sRGB_ColorChecker2005.exr + the
+    reference's sphere/plane meshes, with its two large blobs
+    (parking_garage_4k.exr, hand.vol) replaced by generated substitutes
+    (tools/gen_macbeth_fixture.py); the golden EXRs were rendered by the
+    reference binary from the same fixture dir, so the comparison is
+    exact-config."""
+    from nart_jax import render as render_mod
+    from nart_jax.scene import load_scene
 
-    from nart_tpu import render as render_mod
-    from nart_tpu.scene import load_scene
-
-    fix = _os.path.join(_os.path.dirname(__file__), "fixtures", "macbeth")
-    scene = load_scene(_os.path.join(fix, "macbeth.json"), asset_root=fix)
+    scene = load_scene(os.path.join(MACBETH, "macbeth.json"),
+                       asset_root=MACBETH)
     params = render_mod.resolve_params(
         {}, dict(image_width=w, image_height=h, spp=spp)
     )
@@ -265,14 +292,10 @@ def test_glasssphere_golden():
     )
 
 
-def _render_golden_scene(json_name, w, h, spp, fallback="cpu"):
-    from tests.backend_render import render_image
-
-    return render_image(
-        os.path.join(GOLDEN, json_name),
+def _render_golden_scene(json_name, w, h, spp):
+    return _render_session(
+        os.path.join(GOLDEN, json_name), REF_ROOT,
         dict(image_width=w, image_height=h, spp=spp),
-        session_index=0,
-        fallback=fallback,
     )
 
 
@@ -281,12 +304,8 @@ def test_cameralens_golden():
     rho maps, env-map importance sampling — the largest-mesh reference
     scene.  Stripped textures are substituted by surviving ones in
     cameraLens_sub.json (tools/gen_heavy_goldens.py); the golden was
-    rendered by the reference binary from the identical substitute scene.
-    Default-suite via the accelerator subprocess (seconds on the TPU);
-    skipped rather than fallen back when no accelerator is reachable —
-    the CPU walk over 94k tris is hour-class."""
-    ours = _render_golden_scene("cameraLens_sub.json", 128, 128, 16,
-                                fallback="skip")
+    rendered by the reference binary from the identical substitute scene."""
+    ours = _render_golden_scene("cameraLens_sub.json", 128, 128, 16)
     _compare(
         ours,
         os.path.join(GOLDEN, "cameraLens_sub_128x128_16spp.exr"),
@@ -300,10 +319,8 @@ def test_glassicewater_golden():
     """glassIceWater: glass/ice/water/bubbles nested-dielectric priority
     stack (priorities 1-4), roughness + normal maps, 32 bounces — the
     deepest dielectric nesting in the reference.  Table textures are
-    substituted (tools/gen_heavy_goldens.py).  Default-suite via the
-    accelerator subprocess; skip-on-unreachable like cameraLens."""
-    ours = _render_golden_scene("glassIceWater_sub.json", 128, 128, 16,
-                                fallback="skip")
+    substituted (tools/gen_heavy_goldens.py)."""
+    ours = _render_golden_scene("glassIceWater_sub.json", 128, 128, 16)
     _compare(
         ours,
         os.path.join(GOLDEN, "glassIceWater_sub_128x128_16spp.exr"),
@@ -317,9 +334,7 @@ def test_dragonbunnyglass_golden():
     """dragonBunnyGlass class: rough glass sphere + glossy + plastic
     meshes under 3 area lights.  The stripped dragon/bunny meshes are
     substituted by ring.geo/monkey.geo re-posed in the same frame
-    (tools/gen_heavy_goldens.py).  Default-suite: accelerator subprocess
-    first; the CPU fallback (the cheapest of the three heavy scenes)
-    keeps the check alive off-host."""
+    (tools/gen_heavy_goldens.py)."""
     ours = _render_golden_scene("dragonBunnyGlass_sub.json", 128, 128, 16)
     _compare(
         ours,
@@ -332,16 +347,16 @@ def test_dragonbunnyglass_golden():
 
 def test_cornell_golden():
     """Diffuse Cornell-style box (BASELINE config 2: lambert + disk light +
-    MIS).  Scene JSON lives in tests/golden/cornell.json (built on the
-    reference's plane/sphere meshes); golden rendered by the reference
+    MIS).  Scene JSON lives in tests/golden/cornell.json; its plane and
+    sphere meshes are the reference's, copied into tests/fixtures/macbeth
+    (tools/gen_macbeth_fixture.py); golden rendered by the reference
     binary.  Diffuse transport is non-chaotic, so tolerances are
     veach-grade."""
-    from nart_tpu import render as render_mod
-    from nart_tpu.scene import load_scene
+    from nart_jax import render as render_mod
+    from nart_jax.scene import load_scene
 
-    scene = load_scene(
-        os.path.join(GOLDEN, "cornell.json"), asset_root="/root/reference"
-    )
+    scene = load_scene(os.path.join(GOLDEN, "cornell.json"),
+                       asset_root=MACBETH)
     params = render_mod.resolve_params(
         {}, dict(image_width=64, image_height=64, spp=8, bounces=6)
     )
@@ -361,12 +376,11 @@ def test_cornell_golden():
 )
 def test_cornell_golden_64spp():
     """BASELINE config 2 at its full 64 spp (tight tolerances)."""
-    from nart_tpu import render as render_mod
-    from nart_tpu.scene import load_scene
+    from nart_jax import render as render_mod
+    from nart_jax.scene import load_scene
 
-    scene = load_scene(
-        os.path.join(GOLDEN, "cornell.json"), asset_root="/root/reference"
-    )
+    scene = load_scene(os.path.join(GOLDEN, "cornell.json"),
+                       asset_root=MACBETH)
     params = render_mod.resolve_params(
         {}, dict(image_width=128, image_height=128, spp=64, bounces=6)
     )

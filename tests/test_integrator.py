@@ -5,7 +5,7 @@ import os
 import jax.numpy as jnp
 import numpy as np
 
-from nart_tpu import render as render_mod
+from nart_jax import render as render_mod
 from tests import oracle, scenes
 
 

@@ -18,8 +18,8 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 
-from nart_tpu import grad as grad_mod
-from nart_tpu import render as render_mod
+from nart_jax import grad as grad_mod
+from nart_jax import render as render_mod
 from tests import scenes
 
 W = H = 12
@@ -105,7 +105,7 @@ def test_inverse_albedo_recovers_target():
     params = render_mod.RenderParams(
         image_width=W, image_height=H, spp=SPP, bounces=3, filter_width=1.0
     )
-    bvh = grad_mod.build_accel(np.asarray(scene.tri_v), "auto")
+    bvh = grad_mod.build_bvh(np.asarray(scene.tri_v))
     scene_j, samples, n = _balanced_setup(scene, params)
 
     theta_star = grad_mod.get_params(scene_j)
@@ -130,7 +130,7 @@ def test_inverse_light_intensity_recovers_target():
     params = render_mod.RenderParams(
         image_width=W, image_height=H, spp=SPP, bounces=3, filter_width=1.0
     )
-    bvh = grad_mod.build_accel(np.asarray(scene.tri_v), "auto")
+    bvh = grad_mod.build_bvh(np.asarray(scene.tri_v))
     scene_j, samples, n = _balanced_setup(scene, params)
 
     theta_star = grad_mod.get_params(scene_j)
@@ -152,7 +152,7 @@ def test_inverse_light_intensity_recovers_target():
 
 def test_inverse_volume_emission_recovers_target():
     """Recover a medium's emission Le through the balanced volume replay."""
-    from nart_tpu.scene import LIGHT_ENV, LightData, MediumData
+    from nart_jax.scene import LIGHT_ENV, LightData, MediumData
 
     base = scenes.simple_scene(("lambert",))
     medium = MediumData(

@@ -3,7 +3,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from nart_tpu import lights, scene as scene_mod
+from nart_jax import lights, scene as scene_mod
 
 
 def _disk(radius=1.0, inner=0.0, kind=scene_mod.LIGHT_DISK, intensity=2.0):
@@ -238,3 +238,23 @@ def test_area_pack_nearest_matches_loop():
         np.where(hit, np.asarray(t_p), 0), np.where(hit, t_best, 0),
         rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(np.asarray(le_p), le, rtol=1e-5, atol=1e-6)
+
+
+def test_env2d_bracket_tables_match_plain_search():
+    """h > 64 maps sample through the inverse-CDF bracket tables; stripping
+    the tables (the plain searchsorted / row-gather path) must give
+    identical samples and pdfs."""
+    import dataclasses
+
+    g = np.random.default_rng(5)
+    img = g.gamma(0.5, 1.0, (96, 200, 3)).astype(np.float32)
+    img[10:14] = 0.0  # black rows: zero-pdf bins the search must skip
+    dist2d = scene_mod._build_env2d(img)
+    assert dist2d.marg_inv is not None and dist2d.cond_inv is not None
+    plain = dataclasses.replace(dist2d, marg_inv=None, cond_inv=None,
+                                marg_steps=0, cond_steps=0)
+    u2 = _u2(20000, seed=9)
+    uv_t, pdf_t = lights.env2d_sample(dist2d, u2)
+    uv_p, pdf_p = lights.env2d_sample(plain, u2)
+    np.testing.assert_array_equal(np.asarray(uv_t), np.asarray(uv_p))
+    np.testing.assert_array_equal(np.asarray(pdf_t), np.asarray(pdf_p))

@@ -17,8 +17,8 @@ import pytest
 
 import jax
 
-from nart_tpu import accel, grad as grad_mod
-from nart_tpu import render as render_mod
+from nart_jax import accel, grad as grad_mod
+from nart_jax import render as render_mod
 from tests import scenes
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -82,8 +82,8 @@ def test_multiprocess_grad_matches_single(multihost_npz):
     px, py = jnp.asarray(idx % 8), jnp.asarray(idx // 8)
 
     def loss(theta):
-        from nart_tpu import camera, rng, sampling
-        from nart_tpu.integrators import path as pi
+        from nart_jax import camera, rng, sampling
+        from nart_jax.integrators import path as pi
 
         scn = grad_mod.put_params(scene_j, theta)
         state = rng.seed(py * 8 + px)

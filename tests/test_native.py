@@ -1,6 +1,6 @@
 """Native runtime core (libnartcore.so) vs pure-Python twins.
 
-The native C++ path (nart_tpu/native/core.cpp) must agree with the
+The native C++ path (nart_jax/native/core.cpp) must agree with the
 behavior-defining Python implementations for .geo parsing, .vol parsing,
 and the LBVH build.
 """
@@ -11,7 +11,7 @@ import os
 import numpy as np
 import pytest
 
-from nart_tpu import _native, accel, geo, vol
+from nart_jax import _native, accel, geo, vol
 
 pytestmark = pytest.mark.skipif(
     _native.get() is None, reason="native core unavailable"

@@ -3,7 +3,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from nart_tpu import rng, sampling
+from nart_jax import rng, sampling
 
 
 def test_uniform_float_matches_scalar():

@@ -3,7 +3,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from nart_tpu import sampling
+from nart_jax import sampling
 
 
 def _u2(n, seed=0):

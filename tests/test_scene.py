@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from nart_tpu import geo, scene as scene_mod
+from nart_jax import geo, scene as scene_mod
 
 REF = "/root/reference"
 
@@ -36,7 +36,7 @@ def test_glass_sphere_scene():
 
 
 def test_veach_scene_sessions():
-    from nart_tpu import render as render_mod
+    from nart_jax import render as render_mod
 
     sessions = render_mod.load_sessions(f"{REF}/input/scenes/veach.json", {})
     assert len(sessions) == 1
@@ -75,7 +75,7 @@ def test_geo_plane():
 
 
 def test_ring_scene_multi_session():
-    from nart_tpu import render as render_mod
+    from nart_jax import render as render_mod
 
     sessions = render_mod.load_sessions(f"{REF}/input/scenes/ring.json", {})
     assert len(sessions) == 3

@@ -2,10 +2,11 @@
 
 import jax
 import numpy as np
+import pytest
 
-from nart_tpu import accel
-from nart_tpu import render as render_mod
-from nart_tpu import sharding
+from nart_jax import accel
+from nart_jax import render as render_mod
+from nart_jax import sharding
 from tests import scenes
 
 
@@ -63,7 +64,7 @@ def test_sharded_gradient_allreduce():
     import jax.numpy as jnp
     from jax.sharding import PartitionSpec as P
 
-    from nart_tpu import grad as grad_mod
+    from nart_jax import grad as grad_mod
 
     scene = scenes.simple_scene(("lambert",))
     params = render_mod.RenderParams(
@@ -83,8 +84,8 @@ def test_sharded_gradient_allreduce():
         return jnp.sum(lanes)
 
     def _trace_lanes(scn, bvh, params, px, py):
-        from nart_tpu import camera, rng, sampling
-        from nart_tpu.integrators import path as pi
+        from nart_jax import camera, rng, sampling
+        from nart_jax.integrators import path as pi
 
         state = rng.seed(py * 8 + px)
         samples, state = sampling.latin_square(state, params.spp)
@@ -111,3 +112,39 @@ def test_sharded_gradient_allreduce():
         np.testing.assert_allclose(
             np.asarray(g_single[k]), np.asarray(g_multi[k]), rtol=1e-5
         )
+
+
+@pytest.mark.parametrize("n_tiles,n_spp", [(2, 2), (4, 1)])
+def test_sharded_replay_step_matches_one_device(n_tiles, n_spp):
+    """The sharded fwd+bwd step (sharding.sharded_replay_step, the path
+    chip_smoke.py --cards 4 runs on four cards) gives the one-device loss
+    and gradients: per-item streams are keyed by global ids, only the
+    summation order differs."""
+    import jax.numpy as jnp
+
+    from nart_jax import grad as grad_mod
+
+    scene = scenes.simple_scene(("plastic", "lambert"), roughness=0.3)
+    params = render_mod.RenderParams(
+        image_width=8, image_height=6, spp=3, bounces=3, filter_width=1.0
+    )
+    bvh = accel.build_bvh(np.asarray(scene.tri_v))
+    scene_j = jax.tree_util.tree_map(jnp.asarray, scene)
+    theta = grad_mod.get_params(scene_j)
+    def step(mesh):
+        n_rounds = sharding.sharded_replay_rounds(
+            scene_j, bvh, theta, params, mesh, 8, 6
+        )
+        (loss, unfinished), grads = sharding.sharded_replay_step(
+            scene_j, bvh, params, mesh, 8, 6, n_rounds
+        )(theta)
+        assert int(unfinished) == 0
+        return loss, grads
+
+    one = step(sharding.make_mesh2(1, 1))
+    many = step(sharding.make_mesh2(n_tiles, n_spp))
+    np.testing.assert_allclose(float(many[0]), float(one[0]), rtol=1e-5)
+    for g1, gn in zip(jax.tree_util.tree_leaves(one[1]),
+                      jax.tree_util.tree_leaves(many[1])):
+        np.testing.assert_allclose(np.asarray(gn), np.asarray(g1),
+                                   rtol=1e-4, atol=1e-6)

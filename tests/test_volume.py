@@ -3,10 +3,10 @@
 import jax.numpy as jnp
 import numpy as np
 
-from nart_tpu import render as render_mod
-from nart_tpu.integrators import volume as vol_int
-from nart_tpu.scene import LIGHT_ENV, LightData, MediumData
-from nart_tpu import rng
+from nart_jax import render as render_mod
+from nart_jax.integrators import volume as vol_int
+from nart_jax.scene import LIGHT_ENV, LightData, MediumData
+from nart_jax import rng
 from tests import scenes
 
 

@@ -46,8 +46,7 @@ CONFIGS = {
         96, 96, 256, 64, {"integrator": "volume"},
         "tests/test_golden.py::test_volume_golden",
     ),
-    # the production-size volume row (round-5 crossover record: the TPU
-    # wins at BOTH sizes since the static-assignment scheduler landed)
+    # the production-size volume row
     "5b_volume_256": (
         "tests/golden/volume_blob.json", "tests/golden",
         256, 256, 256, 64, {"integrator": "volume"},
@@ -59,8 +58,8 @@ CONFIGS = {
 def run_config(name):
     import jax
 
-    from nart_tpu import render as render_mod
-    from nart_tpu.scene import load_scene
+    from nart_jax import render as render_mod
+    from nart_jax.scene import load_scene
 
     scene_path, root, w, h, spp, bounces, extra, validation = CONFIGS[name]
     scale = float(os.environ.get("NART_BENCH_SIZE_SCALE", "1"))

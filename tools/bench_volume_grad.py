@@ -1,6 +1,6 @@
 """Volume gradient throughput: balanced replay vs lockstep trace_diff.
 
-128^2 @ 8spp on the volume_blob golden scene, real TPU.
+128^2 @ 8spp on the volume_blob golden scene, on the default device.
 """
 import sys
 import time
@@ -11,9 +11,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from nart_tpu import grad as grad_mod
-from nart_tpu import render as render_mod
-from nart_tpu.scene import load_scene
+from nart_jax import grad as grad_mod
+from nart_jax import render as render_mod
+from nart_jax.scene import load_scene
 
 scene = load_scene("/root/repo/tests/golden/volume_blob.json",
                    asset_root="/root/repo/tests/golden")

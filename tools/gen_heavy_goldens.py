@@ -8,7 +8,7 @@ stripped large blobs (/root/reference/.MISSING_LARGE_BLOBS): 6 of the 7
 cameraLens textures, the 3 glassIceWater table textures, and the
 dragon_lo/bunny meshes.  This script derives *_sub.json variants that
 keep every surviving asset and substitute the missing ones with assets
-that DO exist (so the reference binary and nart-tpu read byte-identical
+that DO exist (so the reference binary and nart-jax read byte-identical
 inputs), then renders the goldens with the reference binary
 (tools/refbuild/nart_ref, run from /root/reference for relative paths).
 

@@ -78,7 +78,7 @@ def main():
     img = (sky + sun).astype(np.float32)
     rgba = np.concatenate([img, np.ones((h, w, 1), np.float32)], -1)
 
-    from nart_tpu import exr
+    from nart_jax import exr
 
     exr.write(os.path.join(FIX, "input/textures/parking_garage_4k.exr"), rgba)
     print("staged", FIX)

@@ -24,7 +24,7 @@ GOLDEN = os.path.join(ROOT, "tests", "golden")
 
 def main():
     sys.path.insert(0, ROOT)
-    from nart_tpu.vol import VolGrid, write_vol
+    from nart_jax.vol import VolGrid, write_vol
 
     res = 32
     z, y, x = np.mgrid[0:res, 0:res, 0:res].astype(np.float32)
@@ -61,7 +61,7 @@ def main():
                 0.0, 0.0, 0.0, 1.0,
             ],
             "medium": {
-                "filePath": vol_path,
+                "filePath": "tests//golden//blob.vol",  # under the repo root
                 "sigma_a": 1.0,
                 "sigma_s": 8.0,
                 "Le": [0.4, 0.3, 0.2],

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Convert Wavefront .obj meshes to the .geo format consumed by nart-tpu.
+"""Convert Wavefront .obj meshes to the .geo format consumed by nart-jax.
 
 Role parity with the reference asset converter (python/obj2geo.py): emits
   numFaces

@@ -1,184 +1,88 @@
-"""Minimal XSpace (xplane.pb) parser: per-op device-time aggregation.
+"""Per-kernel device time and idle share from a JAX profiler trace (GPU).
 
-The tensorboard profile plugin in this image cannot load its own protos,
-so this hand-rolls the protobuf wire format for the few fields needed:
-
-  XSpace.planes(1) -> XPlane{name(2), lines(3), event_metadata(4)}
-  XLine{name(3), events(7)} -> XEvent{metadata_id(1), duration_ps(3)}
-  XEventMetadata map entry{key(1), value(2=XEventMetadata{id(1), name(2),
-  display_name(3)}}
+On an NVIDIA GPU the trace has one plane per card, named /device:GPU:<n>.
+Kernels run as events on its stream lines ("Stream #<id>(...)"); this
+reduction sums their durations by kernel name, and takes the union of the
+kernel intervals as the card's busy time over the traced window (first
+kernel start to last kernel end), so idle share = 1 - busy / window.
 
 Usage: python tools/xplane_parse.py <trace_dir_or_xplane.pb> [top_n]
-Prints per-event-name total time (ms) for every device plane, descending.
 """
 import glob
 import os
-import struct
 import sys
 from collections import defaultdict
 
 
-def varint(buf, i):
-    shift = 0
-    val = 0
-    while True:
-        b = buf[i]
-        val |= (b & 0x7F) << shift
-        i += 1
-        if not b & 0x80:
-            return val, i
-        shift += 7
+def gpu_planes(profile):
+    """The card planes of a jax.profiler.ProfileData."""
+    return [p for p in profile.planes if p.name.startswith("/device:GPU:")]
 
 
-def fields(buf):
-    """Yield (field_no, wire_type, value) over a serialized message."""
-    i = 0
-    n = len(buf)
-    while i < n:
-        tag, i = varint(buf, i)
-        fno, wt = tag >> 3, tag & 7
-        if wt == 0:
-            v, i = varint(buf, i)
-        elif wt == 1:
-            v = buf[i:i + 8]
-            i += 8
-        elif wt == 2:
-            ln, i = varint(buf, i)
-            v = buf[i:i + ln]
-            i += ln
-        elif wt == 5:
-            v = buf[i:i + 4]
-            i += 4
+def kernel_events(plane):
+    """(name, start_ns, end_ns) of every kernel on the plane's streams."""
+    return [
+        (e.name, e.start_ns, e.end_ns)
+        for line in plane.lines
+        if line.name.startswith("Stream")
+        for e in line.events
+    ]
+
+
+def busy_ns(intervals):
+    """Length of the union of [start, end) intervals."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
         else:
-            raise ValueError(f"wire type {wt}")
-        yield fno, wt, v
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
 
 
-def parse_event_metadata(buf):
-    md_id, name, disp = 0, "", ""
-    for fno, wt, v in fields(buf):
-        if fno == 1:
-            md_id = v
-        elif fno == 2:
-            name = v.decode("utf-8", "replace")
-        elif fno == 3:
-            disp = v.decode("utf-8", "replace")
-    return md_id, disp or name
-
-
-def parse_plane(buf):
-    name = ""
-    meta = {}
-    lines = []
-    for fno, wt, v in fields(buf):
-        if fno == 2:
-            name = v.decode("utf-8", "replace")
-        elif fno == 3:
-            lines.append(v)
-        elif fno == 4:  # map<int64, XEventMetadata>
-            k, val = 0, None
-            for f2, w2, v2 in fields(v):
-                if f2 == 1:
-                    k = v2
-                elif f2 == 2:
-                    val = v2
-            if val is not None:
-                md_id, md_name = parse_event_metadata(val)
-                meta[k or md_id] = md_name
-    return name, meta, lines
-
-
-def plane_event_times(meta, lines, line_filter=None):
-    """Aggregate event durations by metadata name.
-
-    Events appear at XLine field 7 (upstream xplane.proto) or field 4 (the
-    libtpu build in this image); both are accepted.
-    """
-    agg = defaultdict(lambda: [0.0, 0])
-    for lbuf in lines:
-        lname = ""
-        evs = []
-        for fno, wt, v in fields(lbuf):
-            if fno in (2, 3) and wt == 2:
-                try:
-                    lname = v.decode("utf-8")
-                except UnicodeDecodeError:
-                    pass
-            elif fno in (4, 7) and wt == 2:
-                evs.append(v)
-        if line_filter and line_filter not in lname:
-            continue
-        for ebuf in evs:
-            md, dur = 0, 0
-            for f2, w2, v2 in fields(ebuf):
-                if f2 == 1:
-                    md = v2
-                elif f2 == 3:
-                    dur = v2
-            name = meta.get(md, f"#{md}")
-            a = agg[name]
-            a[0] += dur / 1e9  # ps -> ms
-            a[1] += 1
-    return agg
-
-
-_OPCODE_RE = None
-
-
-def opcode_of(hlo_text):
-    """'%fusion.3 = f32[...]{..:T(8,128)} fusion(...)' -> short label.
-
-    The result shape's layout contains parens (T(8,128)), so the opcode is
-    the identifier directly preceding the operand list's '(' that follows
-    whitespace after a shape/brace."""
-    global _OPCODE_RE
-    import re
-
-    if _OPCODE_RE is None:
-        _OPCODE_RE = re.compile(r"[)}\]]\s+([a-z][a-z0-9-]*)\(")
-    head, sep, tail = hlo_text.partition(" = ")
-    if not sep:
-        return hlo_text[:60]
-    m = _OPCODE_RE.search(tail)
-    tok = m.group(1) if m else "?"
-    if tok in ("fusion", "custom-call", "while", "call"):
-        # keep the op name for fusions/custom-calls: the %name tells which
-        return f"{tok}:{head.strip()[:48]}"
-    return tok
+def summarize(plane):
+    """{'kernels': {name: [ms, count]}, 'busy_ms', 'window_ms', 'idle'}"""
+    evs = kernel_events(plane)
+    kernels = defaultdict(lambda: [0.0, 0])
+    for name, s, e in evs:
+        k = kernels[name]
+        k[0] += (e - s) / 1e6
+        k[1] += 1
+    busy = busy_ns([(s, e) for _, s, e in evs]) / 1e6
+    window = (max(e for _, _, e in evs) - min(s for _, s, _ in evs)) / 1e6 \
+        if evs else 0.0
+    return {
+        "kernels": dict(kernels),
+        "busy_ms": busy,
+        "window_ms": window,
+        "idle": 1.0 - busy / window if window > 0 else 0.0,
+    }
 
 
 def main():
-    path = sys.argv[1] if len(sys.argv) > 1 else "/tmp/nart_prof"
+    from jax.profiler import ProfileData
+
+    path = sys.argv[1]
     top_n = int(sys.argv[2]) if len(sys.argv) > 2 else 40
     if os.path.isdir(path):
         cands = glob.glob(f"{path}/**/*.xplane.pb", recursive=True)
         if not cands:
             sys.exit(f"no .xplane.pb under {path}")
         path = max(cands, key=os.path.getmtime)
-    buf = open(path, "rb").read()
-    print(f"# {path} ({len(buf)} bytes)")
-    for fno, wt, v in fields(buf):
-        if fno != 1:
-            continue
-        name, meta, lines = parse_plane(v)
-        low = name.lower()
-        if not ("tpu" in low or "device" in low or "xla op" in low):
-            continue
-        agg = plane_event_times(meta, lines, line_filter="XLA Ops")
-        if not agg:
-            continue
-        total = sum(a[0] for a in agg.values())
-        print(f"\n== plane: {name} / XLA Ops  ({len(agg)} op names, "
-              f"{total:.1f} ms total)")
-        # roll up by opcode label
-        by_op = defaultdict(lambda: [0.0, 0])
-        for nm, (ms, cnt) in agg.items():
-            a = by_op[opcode_of(nm)]
-            a[0] += ms
-            a[1] += cnt
-        for nm, (ms, cnt) in sorted(by_op.items(), key=lambda kv: -kv[1][0])[
-                :top_n]:
-            print(f"  {ms:9.2f} ms  x{cnt:<6d} {nm[:110]}")
+    planes = gpu_planes(ProfileData.from_file(path))
+    if not planes:
+        sys.exit(f"{path}: no /device:GPU plane (not a GPU trace)")
+    for plane in planes:
+        s = summarize(plane)
+        print(f"== {plane.name}: busy {s['busy_ms']:.3f} ms of "
+              f"{s['window_ms']:.3f} ms, idle share {s['idle']:.3f}")
+        top = sorted(s["kernels"].items(), key=lambda kv: -kv[1][0])
+        for name, (ms, cnt) in top[:top_n]:
+            print(f"  {ms:10.3f} ms  x{cnt:<6d} {name[:110]}")
 
 
 if __name__ == "__main__":
